@@ -2,15 +2,16 @@
 
 Shards 16k chains of NUTS on the 100-dim logistic regression over every
 available device ('chains' mesh axis), with pooled dual-averaging
-adaptation (cross-chip psum).  On a single host, exercise it with a
+adaptation (cross-device psum).  On a single host, exercise it with a
 virtual mesh:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/multichip_scaling.py --chains 512 --steps 100
 
-On a pod slice, run one process per host after
+Across hosts, run one process per host after
 ``kt.parallel.initialize_distributed(...)`` — the same code scales over
-DCN (no reference counterpart: Klara is single-process, serial chains).
+the hosts' network (no reference counterpart: Klara is single-process,
+serial chains).
 """
 
 import argparse

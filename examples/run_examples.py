@@ -11,13 +11,12 @@ rats hierarchical model.
 Usage: python examples/run_examples.py [--cpu] [--only SUBSTR[,SUBSTR...]]
                                        [--record PATH]
 
-``--record`` writes a JSON artifact {platform, passed, total, failed,
-errors, seconds} — used to record the on-TPU acceptance run
-(EXAMPLES_TPU.json, merged into the bench detail).  The artifact is
-written even when examples fail or crash: every example runs under a
-broad ``except Exception`` (a crash in example 3 must not cost the
-remaining 53 results — VERDICT r04 #6), with the traceback tail kept in
-``errors``.
+``--record`` writes a JSON artifact {platform, device, passed, total,
+failed, errors, seconds}.  The artifact is written even when examples fail
+or crash: every example runs under a broad ``except Exception`` (a crash
+in example 3 must not cost the remaining 53 results), with the traceback
+tail kept in ``errors``; the exit code is still non-zero.  chip_smoke.py
+runs the same registry in-process with no such guard.
 """
 
 import argparse

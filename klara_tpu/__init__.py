@@ -1,4 +1,4 @@
-"""klara_tpu — a TPU-native MCMC inference framework.
+"""klara_tpu — a many-chain MCMC inference framework in JAX.
 
 A from-scratch JAX/XLA re-design with the capabilities of the reference
 Julia package Klara.jl (generic MCMC engine): targets built from
@@ -6,7 +6,8 @@ log-densities / likelihood+prior / distributions, a sampler zoo
 (MH, AM, RAM, AMWG, HMC, NUTS, MALA, SMMALA, slice, ARS), step-size
 tuners (vanilla, acceptance-rate, dual-averaging, Roberts-Rosenthal),
 Gibbs jobs over model graphs, and a device-resident stats layer — all
-vectorised over thousands of chains per chip and sharded over TPU meshes.
+vectorised over thousands of chains per device and sharded over device
+meshes.
 """
 
 from klara_tpu.core.target import Target, bounded_target, whiten_target

@@ -1,6 +1,6 @@
 """Target (log-density) abstraction.
 
-This is the TPU-native replacement for the reference's central component,
+This is the JAX replacement for the reference's central component,
 ``BasicContMuvParameter`` (reference: src/variables/parameters/
 BasicContMuvParameter.jl:3-761) and its univariate/discrete twins.  The
 reference wires 17 mutating closures (`logtarget!`, `gradlogtarget!`,
@@ -82,7 +82,7 @@ class Target:
     # parameter's pdf/prior (src/jobs/BasicMCJob.jl:59-67)
     prior: Optional[Any] = None
     grad_fn: Optional[Callable] = None
-    # fused value+gradient (e.g. a Pallas kernel); overrides the
+    # fused value+gradient (e.g. a hand-derived batched program); overrides the
     # grad_fn / value_and_grad default when present
     value_and_grad_fn: Optional[Callable] = None
     tensor_fn: Optional[Callable] = None
@@ -300,7 +300,7 @@ def whiten_target(target: Target, chol) -> Target:
     (:meth:`klara_tpu.MCJob.run_preconditioned`): running any sampler on
     the whitened target with identity/diagonal mass is equivalent to
     running on ``target`` with dense mass matrix M = (L Lᵀ)⁻¹ — the
-    TPU-native route to a dense metric, because it needs only two extra
+    many-chain route to a dense metric, because it needs only two extra
     (D, D) matvecs per gradient evaluation (no per-chain matrix state).
 
     logp_y(y) = logp_x(L y) (+ const Jacobian), grad_y = Lᵀ grad_x; the

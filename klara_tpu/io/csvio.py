@@ -13,7 +13,7 @@ records which fields are samples vs diagnostics and their shapes, so
 ``read_chain`` can rebuild a typed `Chain` that feeds the stats layer
 directly.  ``ChainReader`` provides the reference's mark/reset stream
 control for incremental consumption of a file that is still being
-written.  For in-loop streaming on TPU use
+written.  For in-loop streaming use
 klara_tpu.io.stream.StreamingWriter (io_callback path) — its output is
 read back by the same functions.
 """

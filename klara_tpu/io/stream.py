@@ -4,7 +4,7 @@ Reference: outopts ``:destination=>:iostream`` streams each saved draw to
 per-field CSV files during the run (src/jobs/BasicMCJob.jl:203-208,
 src/iostreams/), avoiding memory pressure for long chains.
 
-TPU-native mechanism: `jax.experimental.io_callback` (ordered) invoked
+Mechanism: `jax.experimental.io_callback` (ordered) invoked
 from inside the compiled scan — the device pushes each saved draw to the
 host asynchronously; the host appends to open file handles.  This is the
 SURVEY.md §2.2 "Host CSV writer via io_callback" component.
@@ -81,9 +81,9 @@ class StreamingWriter:
         """Host-side callback body for CHUNKED streaming: ``fields`` arrays
         carry a leading chunk axis; append the first ``count`` rows of each.
 
-        One host round-trip per chunk instead of per draw — on a real TPU
-        the per-step ordered io_callback costs a device->host round-trip
-        per iteration, which dominates the run; chunked dumps amortise it
+        One host round-trip per chunk instead of per draw — a per-step
+        ordered io_callback costs a device->host round-trip per
+        iteration, which stalls the device; chunked dumps amortise it
         (SURVEY.md §2.2 'chunked dumps')."""
         count = int(count)
         if count > 0:

@@ -1,6 +1,6 @@
 """Device-resident Markov-chain trace.
 
-TPU-native replacement for the reference's preallocated NState chain
+Device-resident replacement for the reference's preallocated NState chain
 storage (src/nstates/ParameterNStates/BasicContMuvParameterNState.jl:1-119,
 ``const MarkovChain = ParameterNState``): a dict of arrays shaped
 ``(n_post, n_chains, *event_shape)`` for each monitored field, plus a

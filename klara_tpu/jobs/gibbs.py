@@ -14,10 +14,10 @@ from the prior (``resetpstate``, lines 158-168).  Each variable carries
 its own output options (destination / diagnostics / csv streaming,
 lines 57-65 and 170-183).
 
-TPU-native design: the sweep is irreducibly sequential across blocks
+Design: the sweep is irreducibly sequential across blocks
 (SURVEY.md §3.4), so blocks are unrolled in Python inside ONE compiled
 step function; `lax.scan` drives sweeps and `vmap` runs thousands of
-independent Gibbs chains in SIMD lockstep, mesh-shardable over the
+independent Gibbs chains in lockstep, mesh-shardable over the
 'chains' axis exactly like MCJob.  Nested MCMC blocks re-initialise the
 sampler state each sweep (the reference's `reset`) — from the current
 value, or from a fresh prior draw when ``reset_from_prior`` — and run
@@ -137,7 +137,7 @@ class GibbsJob:
     hoist_step_search: bool = True
     # Storage dtype for the device trace buffers (cf. MCJob.trace_dtype):
     # None keeps each variable's compute dtype; 'bfloat16' halves the
-    # trace HBM so sweep windows twice as long fit on-chip.  Only
+    # trace memory so sweep windows twice as long fit on the device.  Only
     # floating-point variables are cast; the sweep kernel itself is
     # untouched (only the saved copy rounds).
     trace_dtype: Optional[str] = None
@@ -420,8 +420,8 @@ class GibbsJob:
         else:
             # chunked host flush: saved sweeps accumulate in a device ring
             # buffer; ONE ordered io_callback per stream_chunk sweeps per
-            # variable (cf. MCJob._drive — per-step round-trips dominate
-            # on real TPUs)
+            # variable (cf. MCJob._drive — every round-trip stalls the
+            # device)
             from jax.experimental import io_callback
 
             chunk = max(1, min(self.stream_chunk, n_steps))

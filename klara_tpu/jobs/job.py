@@ -1,6 +1,6 @@
 """MCJob: the simulation driver.
 
-TPU-native re-design of the reference's ``BasicMCJob``
+Many-chain re-design of the reference's ``BasicMCJob``
 (src/jobs/BasicMCJob.jl:6-295).  The reference's hot loop —
 
     for i in 1:nsteps
@@ -13,7 +13,7 @@ TPU-native re-design of the reference's ``BasicMCJob``
     * the step kernel is a pure function, `vmap`-ed over a chains axis
       (the reference runs ONE chain per job; `run(::Vector{MCJob})` is a
       serial map, src/jobs/jobs.jl:212 — here thousands of chains run in
-      SIMD lockstep per chip);
+      lockstep per device);
     * `lax.scan` drives the steps; saving is an in-scan
       `dynamic_update_index_in_dim` scatter into preallocated
       ``(n_post, n_chains, ...)`` trace buffers, gated by the postrange
@@ -22,9 +22,9 @@ TPU-native re-design of the reference's ``BasicMCJob``
       (burnin-period semantics identical to the reference, see
       klara_tpu.tuners);
     * chains are sharded over a device mesh axis ('chains') — data
-      parallelism over ICI with zero per-step communication; optional
-      *pooled* adaptation reduces acceptance statistics across all chains
-      (a cross-chip `mean`, lowered by XLA to a psum over ICI).
+      parallelism with zero per-step communication; optional *pooled*
+      adaptation reduces acceptance statistics across all chains (a
+      cross-device `mean`, lowered by XLA to an all-reduce).
 
 Monitored fields (reference outopts[:monitor], src/jobs/jobs.jl:9-46):
 'value', 'logtarget', 'loglikelihood', 'logprior', 'gradlogtarget'.
@@ -47,6 +47,17 @@ from klara_tpu.jobs.chain import Chain
 from klara_tpu.jobs.range import MCRange
 from klara_tpu.samplers.base import Info, Sampler
 from klara_tpu.tuners.tuners import Tuner
+
+
+@functools.partial(jax.jit, donate_argnums=0)
+def _back_transform(y, L):
+    """x = L y over a whitened trace, in the trace's storage dtype: under
+    trace_dtype='bfloat16' the bf16 x f32 einsum would otherwise promote
+    to a full-size f32 buffer (2x the bf16 trace, 3x footprint at peak).
+    Jitted once at module level so XLA fuses the down-cast into the einsum
+    epilogue and donates the whitened trace, without recompiling per
+    call."""
+    return jnp.einsum("...d,ed->...e", y, L).astype(y.dtype)
 
 
 def _field_value(name: str, state, info: Info, target: Target):
@@ -140,34 +151,34 @@ class MCJob:
     flush: bool = False
     # csv streaming flushes to the host every `stream_chunk` steps (saved
     # draws accumulate in a device ring buffer in between): one ordered
-    # io_callback round-trip per chunk instead of per step — per-step
-    # round-trips dominate wall time on real TPUs (SURVEY §2.2 'chunked
-    # dumps')
+    # io_callback round-trip per chunk instead of per step, since every
+    # round-trip stalls the device (SURVEY §2.2 'chunked dumps')
     stream_chunk: int = 128
     # 'io_callback' = true in-loop streaming (bounded host memory);
     # 'post' = buffer draws on device and export the CSV directory after
-    # the run — for backends without host-callback support (e.g. a
-    # tunneled/remote TPU client); O(n_post) device memory like 'nstate'
+    # the run — no host callbacks inside the compiled program, and the
+    # in-memory trace is returned too; O(n_post) device memory like
+    # 'nstate'
     stream_mode: str = "io_callback"
     # host-side burnin progress reports every `progress_period` steps —
     # the reference tuner `verbose` flag (src/samplers/iterate/MH.jl:126-140)
     verbose: bool = False
     progress_period: int = 100
-    # ensemble mass-matrix adaptation (TPU-native, no reference
+    # ensemble mass-matrix adaptation (many-chain, no reference
     # counterpart): during burnin, every mass_period steps, set the
     # samplers' diagonal inverse mass to the regularised cross-chain
     # variance of the positions — with thousands of chains the ensemble
     # variance is an instant estimator of the posterior scales, replacing
     # Stan-style Welford windows; under mesh sharding the variance is a
-    # cross-chip collective.  Only samplers whose state carries
+    # cross-device collective.  Only samplers whose state carries
     # ``inv_mass`` (HMC, NUTS) participate.
     mass_adaptation: bool = False
     mass_period: int = 100
-    # ChEES-style cross-chain trajectory-length adaptation (TPU-native,
+    # ChEES-style cross-chain trajectory-length adaptation (many-chain,
     # no reference counterpart; Hoffman, Radul & Sountsov 2021): during
     # burnin, ascend the Change-in-the-Estimator-of-the-Expected-Square
     # jumped distance criterion on log λ with Adam, estimated from the
-    # ensemble's phase-space endpoints (a cross-chip mean under a mesh).
+    # ensemble's phase-space endpoints (a cross-device mean under a mesh).
     # The modern alternative to NUTS for many-chain regimes: fixed-shape
     # leapfrog loops (no per-chain tree control flow), near-NUTS ESS.
     # Use with HMC(jitter=...) so trajectory jitter breaks resonances;
@@ -183,14 +194,13 @@ class MCJob:
     # mass-matrix update) keeps the gradient informative.
     traj_start_frac: float = 0.1
     # Storage dtype for the device-resident SAMPLE trace buffers (the
-    # (n_post, n_chains, dim) arrays — the HBM floor of a long run; the
-    # reference's NState storage is host RAM, nstates/*.jl, so it never
-    # faces this).  None keeps each monitored field's compute dtype;
-    # 'bfloat16' halves the trace HBM so sampling windows twice as long
-    # fit on-chip.  Draw values carry ~0.4% relative rounding — far
-    # below MC noise for moment/ESS estimation (measured on-chip: min
-    # ESS within noise of an f32 trace), and rank-based diagnostics
-    # (rank-R-hat) are insensitive to it.  The SAMPLING kernel is
+    # (n_post, n_chains, dim) arrays — the device-memory floor of a long
+    # run; the reference's NState storage is host RAM, nstates/*.jl, so it
+    # never faces this).  None keeps each monitored field's compute dtype;
+    # 'bfloat16' halves the trace memory so sampling windows twice as
+    # long fit on the device.  Draw values carry ~0.4% relative rounding —
+    # far below MC noise for moment/ESS estimation — and rank-based
+    # diagnostics (rank-R-hat) are insensitive to it.  The SAMPLING kernel is
     # untouched (states stay f32; only the saved copy rounds).
     # Diagnostics buffers keep their dtypes (ints/bools).
     trace_dtype: Optional[str] = None
@@ -386,7 +396,7 @@ class MCJob:
                 accept = infos.accept.astype(jnp.float32)
                 stat = infos.accept_stat if stat_name == "accept_stat" else accept
                 if pooled:
-                    # cross-chain (and cross-chip, via XLA-inserted psum)
+                    # cross-chain (and cross-device, via XLA-inserted psum)
                     # pooling of acceptance statistics
                     accept = jnp.broadcast_to(jnp.mean(accept), accept.shape)
                     stat = jnp.broadcast_to(
@@ -769,7 +779,7 @@ class MCJob:
                            back_transform: bool = True):
         """Two-stage run with a dense ensemble preconditioner.
 
-        TPU-native dense-metric HMC/ChEES (no reference counterpart —
+        Many-chain dense-metric HMC/ChEES (no reference counterpart —
         the reference always uses identity mass, samplers.jl:101-103):
 
         1. **Stage 1** runs this job's warmup on the raw target and takes
@@ -788,16 +798,16 @@ class MCJob:
         Returns ``(chain, timings, info)``: ``chain.value`` is mapped
         back to x-space (with ``back_transform=False`` it stays in
         whitened y-coordinates — saves a second full-trace buffer near
-        the HBM limit); ``timings['warmup_seconds']`` is the HONEST
+        the device-memory limit); ``timings['warmup_seconds']`` is the HONEST
         total adaptation cost (all of stage 1 + stage 2 warmup) and
         ``timings['sampling_seconds']`` stage 2's sampling phase;
         ``info`` carries the Cholesky factor and the whitened job.
         ``chain.final_state`` stays in WHITENED coordinates — to extend
         the run, ``info['whitened_job'].resume(...)`` continues in y and
         the new draws back-transform with ``info['chol']``
-        (x = y @ cholᵀ).  Measured on v5e (ChEES, 16k→8k chains, 100-dim
-        logreg): the whitened trajectory length collapses λ 12.6 → 3.1
-        and leaps/draw ~70 → ~8, a ~5x end-to-end ESS/s win.
+        (x = y @ cholᵀ).  On the 100-dim logreg, whitening shortens the
+        ChEES trajectory several-fold (leaps/draw ~70 → ~8); the ESS/s
+        effect on the H100 is not measured yet.
 
         Requires ``monitor=('value',)`` (other monitored fields live in
         y-space and are not back-transformed).
@@ -855,13 +865,7 @@ class MCJob:
             # The whitened geometry is known (~unit isotropic), so the
             # stage-2 pooled Alg-4 step-size search is redundant: seed
             # dual averaging at the standard eps ~ dim^-1/4 and let the
-            # stage-2 warmup adapt from there.  Skipping the search also
-            # sidesteps a backend fault in its 16,384-chain compiled
-            # form on the whitened target (benchmarks/
-            # whitened_16k_probe.md: the search program deterministically
-            # dies UNAVAILABLE at 16k while every other pipeline piece
-            # passes; with an explicit step size the full 16k pipeline
-            # runs).
+            # stage-2 warmup adapt from there.
             repl["step_size"] = float(x_end.shape[1]) ** -0.25
         wjob = dataclasses.replace(
             self,
@@ -875,7 +879,7 @@ class MCJob:
             # closure constant, so stage 2 compiles fresh per call (a new
             # L is a new program).  For timing studies, warm the whitened
             # programs with the SAME L first so the timed pass measures
-            # the chip, not trace+compile.
+            # the device, not trace+compile.
             warm, _ = wjob.run_phased(key2, y0)
             jax.block_until_ready(warm.final_state)
             # free the warm trace BEFORE the timed pass allocates its
@@ -887,21 +891,11 @@ class MCJob:
 
         # back-transform the trace to x-space: x = L y.  The einsum
         # materialises a second (n_post, n_chains, D) buffer alongside the
-        # whitened trace; for long windows near the HBM limit pass
+        # whitened trace; for long windows near the memory limit pass
         # ``back_transform=False`` and map chunks yourself (x = y @ L.T,
         # L in info['chol']) — e.g. per chain-chunk inside an ESS loop.
         if back_transform:
-            y_trace = chain.samples["value"]
-            # keep the trace's storage dtype: under trace_dtype='bfloat16'
-            # the bf16 x f32 einsum would otherwise promote to a full-size
-            # f32 buffer (2x the bf16 trace, 3x footprint at peak) and can
-            # OOM a window whose bf16 trace fit.  Jitted so XLA fuses the
-            # down-cast into the einsum epilogue (only the storage-dtype
-            # output materialises) and donates the whitened trace.
-            x_trace = jax.jit(
-                lambda y, L: jnp.einsum("...d,ed->...e", y, L).astype(y.dtype),
-                donate_argnums=0,
-            )(y_trace, chol)
+            x_trace = _back_transform(chain.samples["value"], chol)
             chain = dataclasses.replace(
                 chain, samples=dict(chain.samples, value=x_trace)
             )

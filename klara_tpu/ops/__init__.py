@@ -1,5 +1,5 @@
-"""Pallas TPU kernels for hot compute paths."""
+"""Hand-derived batched programs for hot compute paths."""
 
-from klara_tpu.ops.logreg import fused_logreg_value_grad, make_logreg_target
+from klara_tpu.ops.logreg import make_logreg_target
 
-__all__ = ["fused_logreg_value_grad", "make_logreg_target"]
+__all__ = ["make_logreg_target"]

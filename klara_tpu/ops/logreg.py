@@ -1,217 +1,60 @@
-"""Batched logistic-regression log-density + gradient (XLA + Pallas paths).
+"""Batched logistic-regression log-density + gradient as one XLA program.
 
 The hot op of the north-star benchmark (BASELINE.json: HMC on 100-dim
 logistic regression).  Per leapfrog step, every chain c needs
 
-    value_c = p_c·(Xᵀy) − Σ_n softplus(x_n·p_c) − ‖p_c‖²/(2λ) − ½d·log(2πλ)
-    grad_c  = Xᵀy − Xᵀσ(X p_c) − p_c/λ
+    value_c = Σ_n (y_n z_cn − softplus(z_cn)) − ‖p_c‖²/(2λ) − ½d·log(2πλ)
+    grad_c  = Xᵀ(y − σ(z_c)) − p_c/λ,        z_c = X p_c
 
-Two implementations, selected by ``make_logreg_target``:
-
-* ``_xla_value_grad_batched`` — hand-derived batched value+grad as plain
-  XLA ops.  **This is the production default.**  Where the time goes
-  (measured r05, v5e, C=16384, N=1024, default precision): XLA does NOT
-  fuse across the two dots — the (C, N) logits round-trip HBM (134 MB
-  f32), and that traffic IS the floor: a matmul+reduce alone takes
-  0.155 ms ≈ 134 MB / 819 GB/s, the full value+grad 0.224 ms (the
-  +0.056 is the softplus/sigmoid VPU work, partially overlapped).  The
-  op runs at ~85% of HBM peak bandwidth.  Under
-  ``default_matmul_precision('high')`` (what the bench uses — bf16
-  matmul noise in the log-density halves the tuned step size) the
-  3-pass MXU time dominates instead: 0.283 ms/eval, with a grad-only
-  eval saving just 2% — which is why the samplers keep the fused
-  value+grad on every leapfrog step.
-
-* ``fused_logreg_value_grad`` — a Pallas kernel tiling chains × data with
-  softplus lane-partials and σ(Z)·X accumulated in VMEM scratch.
-  Measured SLOWER than the XLA path at every practical tiling (best
-  0.294 ms at C=16384 with tile_c=1024, tile_n=1024, vs XLA 0.224):
-  an ablation with the transcendentals replaced by identity still
-  measures 0.223 ms, i.e. the kernel's Mosaic schedule (serial
-  MXU->VPU->MXU per grid step) is structure-bound at exactly XLA's
-  level, so avoiding the logits round-trip buys nothing here.  Retained
-  as a worked, tested example of the kernel recipe for ops XLA does NOT
-  fuse well, and as the substrate if a future Mosaic gains intra-step
-  MXU/VPU pipelining (theoretical fused floor ~0.10-0.12 ms).
-
-Also measured: plain ``jax.vmap(jax.value_and_grad(logdensity))`` compiles
-to the SAME fused program and runs marginally faster still (0.025 ms/eval)
-— on TPU, XLA+AD is the speed-of-light path for this op, which is why the
-framework's default targets need no custom kernels here.  (Contrast with
-the reference, where AD through ReverseDiff tapes is the bottleneck its
-analytical-gradient examples exist to avoid, doc/examples/swiss/MALA/.)
-
-y enters only through the precomputed vector v = Xᵀy (the y·z term is
-p·v), so the kernel needs just P and X.
-
-Zero-padding correctness: padded D columns are zero in both P and X, so
-they change nothing; padded N rows give z = 0 contributing softplus(0) =
-log 2 per row to every chain — an exact constant subtracted in the
-wrapper (and irrelevant to MH ratios anyway); σ(0)·0-row contributes 0
-to the gradient.
-
-Integration: ``make_logreg_target`` wraps the kernel in
+``_xla_value_grad_batched`` computes both for a (C, D) batch of positions
+with two matmuls over the (C, N) logits; ``make_logreg_target`` wraps it in
 `jax.custom_batching.custom_vmap`, so the SAME per-chain
 ``target.logdensity_and_grad`` used by every sampler dispatches under the
-job driver's `vmap` to the batched value+grad implementation (XLA by
-default, the Pallas kernel with ``use_pallas=True``) — samplers need no
-changes.
+job driver's `vmap` to the batched program — samplers need no changes.
+
+Both likelihood terms read the same logits z, not p·(Xᵀy): when the
+logits matmul rounds p (TF32 on a GPU at 'default'/'high' precision), the
+rounding then cancels between them, while the p·(Xᵀy) form leaves an O(1)
+value error that drives HMC's dual averaging toward ε = 0 (measured with
+the same formula in ``parallel/param_shard.py``).  Where the time goes on the H100 is not measured yet: whether XLA
+fuses the sigmoid into the second matmul, or the (C, N) logits make a
+round trip through device memory, decides whether a hand-written kernel
+could pay (ROADMAP A2).
 """
 
 from __future__ import annotations
 
-import functools
-import math
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-
-try:  # TPU-only import guard (CPU tests use the XLA fallback)
-    from jax.experimental.pallas import tpu as pltpu
-except Exception:  # pragma: no cover
-    pltpu = None
-
-
-def _round_up(x, m):
-    return (x + m - 1) // m * m
-
-
-def _kernel(p_ref, x_ref, sp_ref, sgx_ref, acc_sp, acc_sgx, *, mxu_dtype):
-    ni = pl.program_id(1)
-
-    @pl.when(ni == 0)
-    def _():
-        acc_sp[:] = jnp.zeros_like(acc_sp)
-        acc_sgx[:] = jnp.zeros_like(acc_sgx)
-
-    # MXU passes in mxu_dtype (bf16 matches XLA's default TPU matmul
-    # precision; pass jnp.float32 for full-precision passes), accumulation
-    # always f32 via preferred_element_type.
-    p = p_ref[:].astype(mxu_dtype)  # (TC, Dp)
-    x = x_ref[:].astype(mxu_dtype)  # (TN, Dp)
-    # Z = P Xᵀ on the MXU
-    z = jax.lax.dot_general(
-        p, x, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
-    )  # (TC, TN)
-    sp = jax.nn.softplus(z)
-    tc, tn = sp.shape
-    # lane-partial softplus sums: (TC, TN) -> (TC, 128)
-    acc_sp[:] += jnp.sum(sp.reshape(tc, tn // 128, 128), axis=1)
-    # σ(Z) X on the MXU: (TC, TN) @ (TN, Dp)
-    acc_sgx[:] += jax.lax.dot_general(
-        jax.nn.sigmoid(z).astype(mxu_dtype), x, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-
-    @pl.when(ni == pl.num_programs(1) - 1)
-    def _():
-        sp_ref[:] = acc_sp[:]
-        sgx_ref[:] = acc_sgx[:]
-
-
-@functools.partial(
-    jax.jit, static_argnames=("tile_c", "tile_n", "interpret", "mxu_dtype")
-)
-def _fused_core(P, X, tile_c=512, tile_n=512, interpret=False, mxu_dtype=jnp.float32):
-    C, Dp = P.shape
-    N, _ = X.shape
-    grid = (C // tile_c, N // tile_n)
-    sp, sgx = pl.pallas_call(
-        functools.partial(_kernel, mxu_dtype=mxu_dtype),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tile_c, Dp), lambda ci, ni: (ci, 0)),
-            pl.BlockSpec((tile_n, Dp), lambda ci, ni: (ni, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((tile_c, 128), lambda ci, ni: (ci, 0)),
-            pl.BlockSpec((tile_c, Dp), lambda ci, ni: (ci, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((C, 128), jnp.float32),
-            jax.ShapeDtypeStruct((C, Dp), jnp.float32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((tile_c, 128), jnp.float32),
-            pltpu.VMEM((tile_c, Dp), jnp.float32),
-        ],
-        interpret=interpret,
-    )(P, X)
-    return sp, sgx
-
-
-def fused_logreg_value_grad(
-    P, X, y, prior_var, tile_c=512, tile_n=512, interpret=False,
-    mxu_dtype=jnp.float32,
-):
-    """Batched (C, D) -> value (C,), grad (C, D) via the Pallas kernel."""
-    P = jnp.asarray(P, jnp.float32)
-    X = jnp.asarray(X, jnp.float32)
-    y = jnp.asarray(y, jnp.float32)
-    C, D = P.shape
-    N = X.shape[0]
-    lam = jnp.float32(prior_var)
-
-    Dp = _round_up(D, 128)
-    Cp = _round_up(C, tile_c)
-    Np = _round_up(N, tile_n)
-    n_pad = Np - N
-
-    Ppad = jnp.zeros((Cp, Dp), jnp.float32).at[:C, :D].set(P)
-    Xpad = jnp.zeros((Np, Dp), jnp.float32).at[:N, :D].set(X)
-
-    sp_lanes, sgx = _fused_core(
-        Ppad, Xpad, tile_c=tile_c, tile_n=tile_n, interpret=interpret,
-        mxu_dtype=mxu_dtype,
-    )
-    softplus_sum = jnp.sum(sp_lanes[:C], axis=-1) - n_pad * math.log(2.0)
-    sgx = sgx[:C, :D]
-    P = P[:C]
-
-    v = X.T @ y  # (D,)
-    const = 0.5 * D * jnp.log(2.0 * jnp.pi * lam)
-    value = P @ v - softplus_sum - 0.5 * jnp.sum(P * P, axis=-1) / lam - const
-    grad = v[None, :] - sgx - P / lam
-    return value, grad
 
 
 def _xla_value_grad_batched(P, X, y, prior_var):
-    """Pure-XLA fallback (also the CPU test path)."""
+    """(C, D) positions -> value (C,), grad (C, D)."""
     lam = jnp.asarray(prior_var, P.dtype)
     D = P.shape[-1]
     logits = P @ X.T                      # (C, N)
-    v = X.T @ y
     const = 0.5 * D * jnp.log(2.0 * jnp.pi * lam)
     value = (
-        P @ v
-        - jnp.sum(jax.nn.softplus(logits), axis=-1)
+        jnp.sum(logits * y - jax.nn.softplus(logits), axis=-1)
         - 0.5 * jnp.sum(P * P, axis=-1) / lam
         - const
     )
-    grad = v[None, :] - jax.nn.sigmoid(logits) @ X - P / lam
+    grad = (y - jax.nn.sigmoid(logits)) @ X - P / lam
     return value, grad
 
 
-def make_logreg_target(X, y, prior_var: float = 100.0, use_pallas=False):
+def make_logreg_target(X, y, prior_var: float = 100.0):
     """Build a logistic-regression Target whose per-chain
-    ``logdensity_and_grad`` dispatches to a hand-derived batched
-    value+grad under `vmap` (via custom_vmap) — one fused batched program
+    ``logdensity_and_grad`` dispatches to the hand-derived batched
+    value+grad under `vmap` (via custom_vmap) — one batched program
     instead of vmapping AD.  Drop-in replacement for
-    klara_tpu.models.examples.logistic_regression_target.
-
-    ``use_pallas=True`` routes the batched path through the Pallas kernel
-    instead of XLA; measured slower on v5e (see module docstring), so the
-    default is the XLA path."""
+    klara_tpu.models.examples.logistic_regression_target."""
     from klara_tpu.core.target import Target
 
     X = jnp.asarray(X, jnp.float32)
     y = jnp.asarray(y, jnp.float32)
     D = X.shape[1]
     lam = float(prior_var)
-
-    if use_pallas and pltpu is None:
-        use_pallas = False
 
     def logdensity(p):
         logits = X @ p
@@ -231,15 +74,12 @@ def make_logreg_target(X, y, prior_var: float = 100.0, use_pallas=False):
     @value_and_grad_one.def_vmap
     def _rule(axis_size, in_batched, P):
         assert in_batched[0]
-        if use_pallas:
-            value, grad = fused_logreg_value_grad(P, X, y, lam)
-        else:
-            value, grad = _xla_value_grad_batched(P, X, y, lam)
+        value, grad = _xla_value_grad_batched(P, X, y, lam)
         return (value, grad), (True, True)
 
     return Target(
         logdensity_fn=logdensity,
         dim=D,
         value_and_grad_fn=value_and_grad_one,
-        name="logreg_pallas" if use_pallas else "logreg_xla",
+        name="logreg_xla",
     )

@@ -1,11 +1,12 @@
-"""Device-mesh utilities: chain data-parallelism over ICI/DCN.
+"""Device-mesh utilities: chain data-parallelism across devices and hosts.
 
 The reference has NO parallel execution of any kind — `run(::Vector{MCJob})`
-is a serial map (src/jobs/jobs.jl:212).  This module is the TPU-native
+is a serial map (src/jobs/jobs.jl:212).  This module is the many-chain
 replacement (SURVEY.md §2.2): chains are the data-parallel axis, sharded
 over a 1-D device mesh; tuner pooling and cross-chain statistics lower to
-XLA collectives (psum/pmean) over ICI; multi-host scale-out uses
-`jax.distributed.initialize` + the same global mesh over DCN.
+XLA collectives (psum/pmean) between the devices; multi-host scale-out
+uses `jax.distributed.initialize` + the same global mesh.  The mesh is a
+plain device list: no interconnect topology is assumed.
 
 With GSPMD, per-step code needs no explicit collectives: `jnp.mean` over
 the sharded chains axis inside the jitted job IS the psum.
@@ -48,7 +49,7 @@ def initialize_distributed(
     process_id: Optional[int] = None,
 ):
     """Multi-host entry point: call once per host before building the mesh
-    (DCN all-reduce path).  Thin wrapper over `jax.distributed.initialize`
+    (cross-host all-reduce path).  Thin wrapper over `jax.distributed.initialize`
     so single-host runs can call it unconditionally."""
     if num_processes is None or num_processes <= 1:
         return  # single-host: nothing to do

@@ -3,13 +3,13 @@
 The reference handles dimensionality purely via dense in-process vectors
 (src/states/ParameterStates/BasicContMuvParameterState.jl:62-97); the only
 scaling axis it has is "run more jobs serially" (src/jobs/jobs.jl:212).
-On TPU the chains axis (see klara_tpu.parallel.mesh) is the data-parallel
+The chains axis (see klara_tpu.parallel.mesh) is the data-parallel
 dimension; THIS module adds the second, tensor-parallel-style axis from
 SURVEY.md §2.2/§5: for very large parameter dimension d, shard the
 position/gradient vectors and the log-density's feature dimension over a
 'param' mesh axis, following the scaling-book recipe — annotate shardings
 with `with_sharding_constraint`, let GSPMD insert the collectives
-(a psum over 'param' for each logit contraction, riding ICI).
+(a psum over 'param' for each logit contraction).
 
 Layout for the flagship logistic-regression family on a 2-D
 ``(chains, param)`` mesh:
@@ -21,7 +21,7 @@ Layout for the flagship logistic-regression family on a 2-D
 
 Per leapfrog step the only cross-device traffic on the 'param' axis is
 the (C_local, N) partial-logit reduce — everything else (softplus/σ,
-Xᵀσ(Z), prior terms) is local to the shard.
+Xᵀ(y − σ(Z)), prior terms) is local to the shard.
 """
 
 from __future__ import annotations
@@ -68,11 +68,18 @@ def param_sharded_logreg_target(
     """Logistic-regression Target whose batched value+grad is GSPMD-sharded
     over a ``(chains, param)`` mesh.
 
-    Same math as klara_tpu.ops.logreg (the north-star workload); the
-    per-chain ``logdensity_and_grad`` dispatches under the job driver's
+    Same math as the main-path ``models.examples.logistic_regression_target``;
+    the per-chain ``logdensity_and_grad`` dispatches under the job driver's
     `vmap` to one batched program annotated so XLA partitions the feature
     dimension across the 'param' mesh axis.  Use with
     ``MCJob(..., mesh=mesh)`` — the chains axis shards as usual.
+
+    The likelihood is ``yᵀz − Σ softplus(z)`` of ONE logits array z, never
+    ``pᵀ(Xᵀy) − Σ softplus(z)``: when a matmul rounds p (TF32 on a GPU at
+    'default'/'high' precision), the rounding then cancels between the two
+    terms as the log-density's own gradient does, whereas the
+    precomputed-``Xᵀy`` form keeps an O(1) value error that no step size
+    removes, and dual averaging drives ε toward zero.
     """
     from klara_tpu.core.target import Target
 
@@ -93,7 +100,7 @@ def param_sharded_logreg_target(
 
     # features co-sharded with the parameter dimension, resident per-shard
     Xs = jax.device_put(X, NamedSharding(mesh, P(None, param_axis)))
-    v = jax.device_put(X.T @ y, NamedSharding(mesh, P(param_axis)))
+    ys = jax.device_put(y, NamedSharding(mesh, P()))
     const = 0.5 * D * float(np.log(2.0 * np.pi * lam))
 
     def _constrain(t, *spec):
@@ -105,49 +112,28 @@ def param_sharded_logreg_target(
         # over 'param'; logits land P('chains', None)
         logits = _constrain(Pm @ Xs.T, chains_axis, None)
         value = (
-            Pm @ v
-            - jnp.sum(jax.nn.softplus(logits), axis=-1)
+            jnp.sum(logits * ys - jax.nn.softplus(logits), axis=-1)
             - 0.5 * jnp.sum(Pm * Pm, axis=-1) / lam
             - const
         )
-        grad = v[None, :] - jax.nn.sigmoid(logits) @ Xs - Pm / lam
+        grad = (ys - jax.nn.sigmoid(logits)) @ Xs - Pm / lam
         return value, _constrain(grad, chains_axis, param_axis)
 
-    def logdensity(p):  # unbatched (D,) — for init/checkin/stats paths
-        logits = Xs @ p
-        return (
-            jnp.dot(p, v)
-            - jnp.sum(jax.nn.softplus(logits))
-            - 0.5 * jnp.dot(p, p) / lam
-            - const
-        )
-
-    @jax.custom_batching.custom_vmap
-    def value_and_grad_one(p):
-        # Unbatched fallback (init/checkin/stats paths): constrain only the
-        # param axis — a (D,) vector has no chains dimension, and eagerly
-        # applying a 'chains' constraint to a length-1 leading dim raises
-        # whenever that mesh axis has >1 devices.
-        p = jax.lax.with_sharding_constraint(
-            p, NamedSharding(mesh, P(param_axis))
-        )
-        logits = jnp.squeeze(
-            jax.lax.with_sharding_constraint(
-                (p[None, :] @ Xs.T), NamedSharding(mesh, P(None, None))
-            ),
-            0,
-        )
+    def _one(p):  # unbatched (D,) — for init/checkin/stats paths
+        # constrain only the param axis: a (D,) vector has no chains
+        # dimension, and a 'chains' constraint on a length-1 leading dim
+        # raises whenever that mesh axis has >1 devices
+        p = _constrain(p, param_axis)
+        logits = _constrain(Xs @ p, None)
         value = (
-            jnp.dot(p, v)
-            - jnp.sum(jax.nn.softplus(logits))
+            jnp.sum(logits * ys - jax.nn.softplus(logits))
             - 0.5 * jnp.dot(p, p) / lam
             - const
         )
-        grad = v - jax.nn.sigmoid(logits) @ Xs - p / lam
-        grad = jax.lax.with_sharding_constraint(
-            grad, NamedSharding(mesh, P(param_axis))
-        )
-        return value, grad
+        grad = (ys - jax.nn.sigmoid(logits)) @ Xs - p / lam
+        return value, _constrain(grad, param_axis)
+
+    value_and_grad_one = jax.custom_batching.custom_vmap(_one)
 
     @value_and_grad_one.def_vmap
     def _rule(axis_size, in_batched, Pm):
@@ -156,7 +142,7 @@ def param_sharded_logreg_target(
         return (value, grad), (True, True)
 
     return Target(
-        logdensity_fn=logdensity,
+        logdensity_fn=lambda p: _one(p)[0],
         dim=D,
         value_and_grad_fn=value_and_grad_one,
         name="logreg_param_sharded",

@@ -1,6 +1,6 @@
 """Sampler protocol: pure ``(key, state, target) -> (state, info)`` kernels.
 
-TPU-native re-design of the reference's sampler layer
+Pure-function re-design of the reference's sampler layer
 (src/samplers/samplers.jl + src/samplers/iterate/*.jl).  The reference
 drives mutable ``MCSamplerState`` structs through per-sampler ``iterate!``
 kernels inside ``run(job)``'s Julia for-loop

@@ -6,12 +6,12 @@ Reference: src/samplers/samplers.jl:101-202 —
   * ``initialize_step!`` doubling/halving heuristic stepsize search
     (136-202; Hoffman-Gelman Algorithm 4).
 
-TPU design: the leapfrog trajectory runs as `lax.fori_loop` with a traced
+Design: the leapfrog trajectory runs as `lax.fori_loop` with a traced
 trip count (needed because the dual-averaging HMC recomputes
 nleaps = round(λ/ε) per iteration, src/samplers/iterate/HMC.jl:142-144),
 and the step-size search as `lax.while_loop`.  Everything vmaps over
-chains; under vmap the loops run to the per-batch maximum, which is the
-correct SIMD cost model on TPU.
+chains; under vmap the loops run to the per-batch maximum, so every chain
+pays for the longest trajectory in the batch.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from klara_tpu.core.target import Target
 def hamiltonian(logtarget, momentum, inv_mass=None):
     """H(x, p) stored in log-target convention (higher is better).
 
-    With a diagonal mass matrix M (a TPU-native extension — the reference
+    With a diagonal mass matrix M (a many-chain extension — the reference
     always uses identity mass, samplers.jl:101-103), the kinetic term is
     ½ pᵀM⁻¹p."""
     if inv_mass is None:
@@ -66,12 +66,11 @@ def leapfrog(
 ) -> PhasePoint:
     """n_steps leapfrog steps; n_steps may be a traced integer.
 
-    unroll=1 by default: measured on TPU v5e, unrolling the body 4× made
-    the XLA compile ~15× slower (23s vs 1.5s for a 16-leap trajectory at
-    256 chains; compile time grows superlinearly with straight-line MXU
-    code) for IDENTICAL runtime — the scalar-core loop overhead is
-    negligible next to a fused logreg value+grad.  Raise it only for
-    targets whose grad eval is genuinely tiny."""
+    unroll=1 by default: unrolling multiplies the straight-line code XLA
+    compiles (compile time grows superlinearly with it), while the loop
+    overhead is small next to a fused logreg value+grad; the trade-off is
+    not measured on the H100.  Raise it only for targets whose grad eval
+    is genuinely tiny."""
 
     def body(_, carry):
         return leapfrog_step(target, carry, eps, inv_mass)

@@ -63,7 +63,7 @@ class HMC(Sampler):
     # bind_tuner when the tuner is DualAveraging (reference
     # src/samplers/iterate/HMC.jl:142-144); user-settable for testing
     dynamic_nleaps: bool = False
-    # TPU-native extension (no reference counterpart): multiply the
+    # many-chain extension (no reference counterpart): multiply the
     # trajectory length by U(1-jitter, 1+jitter) each step to break the
     # resonances a FIXED trajectory hits on near-Gaussian targets
     # (Neal 2011 §3.2 recommends jittering ε or L).  Only active with

@@ -13,7 +13,7 @@ iterate kernel src/samplers/iterate/MH.jl:72-141.  Feature parity:
     proposals' log-normalisers (iterate/MH.jl:14-24, 91-95) — here folded
     into ``Distribution.logpdf`` plus an optional ``lognormaliser``.
 
-TPU-native extension: the proposal scale is multiplied by ``tune.step`` so
+Extension: the proposal scale is multiplied by ``tune.step`` so
 AcceptanceRateTuner adaptation (README.md:153-198 workflow) applies to MH
 as well; with the default VanillaTuner step stays 1 and behavior matches
 the reference exactly.

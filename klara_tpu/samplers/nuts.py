@@ -1,4 +1,4 @@
-"""No-U-Turn Sampler (NUTS), iterative TPU-native formulation.
+"""No-U-Turn Sampler (NUTS), iterative jit-compatible formulation.
 
 Reference: src/samplers/NUTS.jl (struct: leapstep=0.1, maxδ=1000,
 maxndoublings=5; `uturn` at :392-396; recursive `build_tree!` at
@@ -35,8 +35,8 @@ leaves with
     recursive merges.
 
 Per-chain trajectory lengths diverge; under `vmap` each while_loop runs
-to the batch maximum — the correct SIMD execution model on TPU (all
-lanes retire when the slowest chain's tree terminates).
+to the batch maximum (all chains retire when the slowest chain's tree
+terminates).
 
 Two tree implementations, selected by ``tree_impl``:
 
@@ -46,11 +46,11 @@ Two tree implementations, selected by ``tree_impl``:
     through the leaves in visit order, exactly reproducing the looped
     semantics (leaves after a divergence/u-turn stop contributing);
     u-turn checks happen at the recursion's merge nodes as plain (D,)
-    dot products on the subtree boundary states.  Measured on v5e at
-    16k chains this is ~4x faster than the looped form: the per-leaf
-    (S, D) checkpoint-stack arithmetic — not the leapfrogs — was 81% of
-    the looped step's wall time, and at large batch the while_loops run
-    to the lockstep maximum anyway, so unrolling loses nothing.
+    dot products on the subtree boundary states.  It drops the looped
+    form's per-leaf (S, D) checkpoint-stack arithmetic, and at large
+    batch the while_loops run to the lockstep maximum anyway, so
+    unrolling loses nothing.  The static/looped ratio on the H100 is
+    not measured yet (ROADMAP A1).
   * ``'looped'``: the while_loop + checkpoint-stack form described
     above — compact compile for deep trees (max_doublings > 6) and true
     early exit when ALL chains' trees terminate (relevant at small
@@ -128,7 +128,7 @@ class NUTS(Sampler):
     max_doublings: int = 5
     # dtype for the u-turn checkpoint stack carried through the leaf loop
     # ((S, D) positions+momenta per chain — the dominant while_loop carry
-    # traffic at large chain counts).  'bfloat16' halves that HBM traffic;
+    # traffic at large chain counts).  'bfloat16' halves that memory traffic;
     # the u-turn dot products still reduce in f32.  Stopping decisions may
     # differ from f32 only when a checkpoint inner product sits within
     # bf16 rounding of zero.  Caveat: rounding only the STORED endpoint
@@ -260,9 +260,9 @@ class NUTS(Sampler):
             # --- checkpointed u-turn detection -------------------------
             # One-hot writes and masked-reduction reads instead of
             # per-chain dynamic scatter/gather: under vmap those lower to
-            # scatter/gather HLO with batched indices, which on TPU both
-            # compiles slowly and runs far slower than S x D vector math
-            # (S = max_doublings+1 slots).
+            # scatter/gather HLO with batched indices, which compile
+            # slowly and run slower than S x D vector math (S =
+            # max_doublings+1 slots).
             is_even = (k % 2) == 0
             slot = jnp.clip(_popcount(k, nbits), 0, self.max_doublings)
             write = (jnp.arange(cp.shape[0]) == slot) & is_even   # (S,)
@@ -276,10 +276,9 @@ class NUTS(Sampler):
                 # u-turn criterion of the current point against EVERY stored
                 # checkpoint at once (reference NUTS.jl:392-396 per pair):
                 # d = v*(z - cp[s]); turn_s = d.(M^-1 p_z) < 0 or d.(M^-1 cm[s]) < 0
-                # Both dots as VPU multiply+reduce — a dot_general here
-                # becomes a per-chain batched (S,D)@(D,1) matvec under
-                # vmap, which pipelines 16k tiny MXU ops per leaf and
-                # measured as 81% of the whole NUTS step wall time.
+                # Both dots as elementwise multiply+reduce — a dot_general
+                # here becomes a per-chain batched (S,D)@(D,1) matvec
+                # under vmap: thousands of tiny matmuls per leaf.
                 d_all = v * (p1[None, :] - cp.astype(f))          # (S, D)
                 dot_hi = jnp.sum(d_all * (im1 * m1)[None, :], axis=-1)  # (S,)
                 dot_lo = jnp.sum(d_all * (im1[None, :] * cm.astype(f)), axis=-1)

@@ -10,7 +10,7 @@ kernel src/samplers/iterate/SliceSampler.jl:60-119:
     shrink:    repeat x_i' ~ U(L, R); accept if logπ > log u',
                else shrink the violated side to x_i'
 
-TPU formulation: the unbounded reference loops become `lax.while_loop`s
+Formulation: the unbounded reference loops become `lax.while_loop`s
 with iteration caps (``max_stepouts``, ``max_shrinks``) — the standard
 bounded-iteration slice formulation.  If the shrink loop exhausts its cap
 the coordinate stays put (guaranteed-correct fallback: the current point

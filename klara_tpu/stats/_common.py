@@ -1,7 +1,7 @@
 """Shared field extraction for the stats layer.
 
-Every stats entry point accepts either a Chain/GibbsChains (which carry
-``.samples``) or a raw array.  Extraction also PROMOTES sub-f32 floats
+Every stats entry point accepts a Chain/GibbsChains (which carry
+``.samples``), a plain ``samples`` dict keyed by field, or a raw array.  Extraction also PROMOTES sub-f32 floats
 to f32: with reduced-precision trace storage (``MCJob``/``GibbsJob``
 ``trace_dtype='bfloat16'``) the draws arrive bf16, and reducing them
 with a bf16 accumulator (8-bit mantissa) silently corrupts the result —
@@ -20,7 +20,7 @@ import jax.numpy as jnp
 def extract_f32(chain_or_array, field: str = "value"):
     x = (
         chain_or_array[field]
-        if hasattr(chain_or_array, "samples")
+        if hasattr(chain_or_array, "samples") or isinstance(chain_or_array, dict)
         else chain_or_array
     )
     x = jnp.asarray(x)

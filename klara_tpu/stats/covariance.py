@@ -5,8 +5,8 @@ BLAS.ger! matrix form feeding the AM sampler:
 
     C_k = ((k-1)·C_{k-1} + x xᵀ − (k+1)·m̄ m̄ᵀ + k·m̄₂ m̄₂ᵀ) / k
 
-where m̄ is the running mean after x and m̄₂ the one before.  On TPU the
-three rank-1 updates fuse into a handful of VPU ops (outer products).
+where m̄ is the running mean after x and m̄₂ the one before.  The three
+rank-1 updates fuse into a handful of elementwise ops (outer products).
 """
 
 from __future__ import annotations

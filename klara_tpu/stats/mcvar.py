@@ -8,7 +8,7 @@ Reference: src/stats/variance/mcvar.jl:5-218 — four estimators with
   * ``imse`` — Geyer initial monotone sequence (lines 75-105);
   * ``ipse`` — Geyer initial positive sequence (lines 137-158).
 
-TPU-native design: autocovariances come from one batched real FFT
+Design: autocovariances come from one batched real FFT
 (O(n log n), runs on-device), and Geyer's data-dependent cutoffs become
 mask arithmetic (leading-positive count via cumprod, monotonicity via
 cummin) instead of early-exiting loops — fully vectorised over

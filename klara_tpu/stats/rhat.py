@@ -1,7 +1,7 @@
 """Split-R̂ potential scale reduction (Gelman-Rubin / Vehtari et al. 2021).
 
 NOT in the reference (it runs one chain at a time); added here because the
-chains axis is first-class on TPU — this is the natural cross-chain
+chains axis is first-class here — this is the natural cross-chain
 convergence diagnostic, computed on-device.
 """
 

@@ -9,7 +9,7 @@ Functional re-design of the reference tuner layer (src/tuners/):
     MCMC step by the job driver; all burnin/period gating is expressed with
     `jnp.where` so the whole thing lives inside a `lax.scan` step and
     vmaps over chains (per-chain adaptation) or runs once on cross-chain
-    pooled statistics (pooled adaptation — a TPU-native extension, see
+    pooled statistics (pooled adaptation — a many-chain extension, see
     klara_tpu.jobs.job).
 
 Reference tuning-period semantics preserved exactly (verified against

@@ -3,7 +3,7 @@
 proposals and asymmetric correction, targeting an unnormalised Poisson(λ).
 
 Exercises the BasicDiscUnvParameter capability (reference
-src/variables/parameters/BasicDiscUnvParameter.jl) in the TPU design:
+src/variables/parameters/BasicDiscUnvParameter.jl) in this design:
 integer positions flow through the same MH kernel; the asymmetric
 two-point proposal corrects at the boundary.
 """

@@ -61,7 +61,7 @@ def test_trace_shapes_and_thinning():
 
 
 def test_trace_dtype_bf16_buffers_and_moments():
-    """trace_dtype='bfloat16' halves the trace HBM: sample buffers round
+    """trace_dtype='bfloat16' halves the trace memory: sample buffers round
     to bf16 (diagnostics keep their dtypes), the sampling kernel is
     untouched (draws equal the f32-trace run within bf16 rounding), and
     moment estimates agree within MC-noise-scale tolerance."""

@@ -1,11 +1,11 @@
-"""Multi-process global mesh test — the multi-host (DCN) code path.
+"""Multi-process global mesh test — the multi-host code path.
 
 The reference has no distributed execution at all; this exercises the new
 framework's multi-host story (SURVEY.md §2.2): 2 processes x 4 virtual
 CPU devices joined by `jax.distributed.initialize` into ONE 8-device
 global mesh, chains sharded across processes, pooled tuner adaptation
-reducing across the process boundary.  The same launch recipe runs on a
-TPU pod slice (one process per host); see docs/guide.md.
+reducing across the process boundary.  The same launch recipe runs one
+process per host on real machines; see docs/guide.md.
 """
 
 import os

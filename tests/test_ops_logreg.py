@@ -1,10 +1,10 @@
-"""Fused Pallas logistic-regression kernel (klara_tpu.ops.logreg).
+"""Batched logistic-regression value+grad (klara_tpu.ops.logreg).
 
-Runs the actual kernel body in Pallas interpret mode on CPU (padding,
-lane-partial accumulation, grid accumulation across data tiles) and
-checks both the XLA fallback and the kernel against jax.value_and_grad
+Checks the hand-derived batched XLA program against jax.value_and_grad
 of the scalar log-density — the reference's correctness oracle is the
-analytical gradient in doc/examples/swiss/MALA/analytical.jl.
+analytical gradient in doc/examples/swiss/MALA/analytical.jl — and the
+custom_vmap target against the main path's fused target
+(models.examples.logistic_regression_target).
 """
 
 import numpy as np
@@ -12,11 +12,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from klara_tpu.ops.logreg import (
-    _xla_value_grad_batched,
-    fused_logreg_value_grad,
-    make_logreg_target,
-)
+from klara_tpu.models.examples import logistic_regression_target
+from klara_tpu.ops.logreg import _xla_value_grad_batched, make_logreg_target
 
 
 def _problem(C=5, D=7, N=33, lam=10.0, seed=0):
@@ -50,21 +47,22 @@ def test_xla_fallback_matches_autodiff():
     np.testing.assert_allclose(np.asarray(g), np.asarray(g_ref), rtol=1e-5, atol=1e-5)
 
 
-def test_pallas_kernel_interpret_matches_autodiff():
-    """Exercises the real kernel body (interpret mode) with shapes that
-    force padding in all three dimensions and >1 data tile."""
-    P, X, y, lam = _problem(C=5, D=7, N=300)
-    v_ref, g_ref = _oracle(P, X, y, lam)
-    v, g = fused_logreg_value_grad(
-        P, X, y, lam, tile_c=8, tile_n=128, interpret=True
-    )
-    np.testing.assert_allclose(np.asarray(v), np.asarray(v_ref), rtol=2e-5, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(g), np.asarray(g_ref), rtol=2e-5, atol=1e-4)
+@pytest.mark.parametrize("C,D,N", [(1, 3, 20), (16, 100, 1024), (37, 9, 301)])
+def test_batched_target_matches_main_path_target(C, D, N):
+    """make_logreg_target's batched custom_vmap path against the main
+    path's fused per-chain target, vmapped, both at 'highest'."""
+    P, X, y, lam = _problem(C=C, D=D, N=N, seed=C)
+    with jax.default_matmul_precision("highest"):
+        v, g = jax.jit(jax.vmap(make_logreg_target(X, y, lam).logdensity_and_grad))(P)
+        ref = logistic_regression_target(X, y, prior_var=lam)
+        v_ref, g_ref = jax.jit(jax.vmap(ref.logdensity_and_grad))(P)
+    np.testing.assert_allclose(np.asarray(v), np.asarray(v_ref), rtol=1e-5)
+    np.testing.assert_allclose(np.asarray(g), np.asarray(g_ref), rtol=1e-5, atol=1e-4)
 
 
 def test_make_logreg_target_dispatches_under_vmap():
     P, X, y, lam = _problem(C=4, D=3, N=20)
-    target = make_logreg_target(X, y, prior_var=lam, use_pallas=False)
+    target = make_logreg_target(X, y, prior_var=lam)
     # scalar path
     v0 = target.logdensity(P[0])
     v_ref, g_ref = _oracle(P, X, y, lam)
@@ -84,7 +82,7 @@ def test_hmc_job_runs_on_fused_target():
     import klara_tpu as kt
 
     _, X, y, lam = _problem(C=1, D=3, N=50, seed=1)
-    target = make_logreg_target(X, y, prior_var=lam, use_pallas=False)
+    target = make_logreg_target(X, y, prior_var=lam)
     job = kt.MCJob(
         target,
         kt.HMC(leapstep=0.1, nleaps=5),

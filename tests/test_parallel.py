@@ -1,8 +1,8 @@
 """Mesh-sharding tests on the virtual 8-device CPU platform.
 
 The reference has no distributed execution (SURVEY.md §2.2); these tests
-cover the new TPU-native parallel components: chain sharding, pooled
-cross-chip adaptation, sharding-invariant determinism (SURVEY.md §5 "race
+cover the new parallel components: chain sharding, pooled
+cross-device adaptation, sharding-invariant determinism (SURVEY.md §5 "race
 detection" substitute: same PRNG key ⇒ bit-identical chains across
 shardings), and the driver dry-run entry point.
 """
@@ -149,9 +149,9 @@ def test_param_sharded_target_matches_unsharded():
 
 def test_param_sharded_target_direct_unbatched_call():
     """The public per-chain logdensity_and_grad works EAGERLY on a single
-    (D,) vector even when the chains mesh axis has >1 devices (advisor
-    finding: the old unbatched fallback applied a 'chains' constraint to a
-    (1, D) array and crashed outside jit/vmap)."""
+    (D,) vector even when the chains mesh axis has >1 devices (the
+    unbatched fallback must not apply a 'chains' constraint to a (1, D)
+    array outside jit/vmap)."""
     from klara_tpu.parallel import mesh2d, param_sharded_logreg_target
 
     X, y = _logreg_problem()
@@ -178,7 +178,7 @@ def test_param_sharded_target_direct_unbatched_call():
 
 def test_param_sharded_target_indivisible_dim_errors():
     """D not divisible by the param axis raises a clear ValueError at
-    construction (advisor finding: opaque device_put divisibility error)."""
+    construction, not an opaque device_put divisibility error."""
     from klara_tpu.parallel import mesh2d, param_sharded_logreg_target
 
     X, y = _logreg_problem(D=15)

@@ -402,9 +402,8 @@ def test_whiten_target_preserves_decomposition_and_prior():
 
 def test_preconditioned_stage2_step_is_seeded_not_searched():
     """run_preconditioned seeds stage-2 dual averaging at dim^-1/4 by
-    default (the whitened Alg-4 search is redundant AND its 16k-chain
-    compiled form hits a backend fault — benchmarks/
-    whitened_16k_probe.md); an explicit stage2_replace['step_size']
+    default (the whitened geometry is ~unit isotropic, so the Alg-4
+    search is redundant); an explicit stage2_replace['step_size']
     overrides the seed."""
     t = kt.Target(logdensity_fn=lambda x: -0.5 * jnp.sum(x**2), dim=4)
     job = kt.MCJob(

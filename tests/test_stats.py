@@ -128,3 +128,18 @@ def test_rank_normalized_rhat_detects_stuck_chain():
     x = x.at[:, 0, :].add(5.0)  # one chain stuck in a different mode
     r = np.asarray(kt.stats.rhat_rank(x))
     assert np.all(r > 1.05), r
+
+
+def test_stats_accept_plain_samples_dict():
+    """A plain ``samples`` dict (e.g. GibbsChains.samples) works like a
+    Chain; bf16 storage is promoted to f32 before reducing."""
+    x = ar1(3, 600, 4, 0.5)
+    xb = x.astype(jnp.bfloat16)
+    d = {"value": xb, "other": x}
+    assert stats.mean(d).dtype == jnp.float32
+    np.testing.assert_allclose(
+        np.asarray(stats.mean(d)), np.mean(np.asarray(xb, np.float32)), rtol=1e-5
+    )
+    np.testing.assert_allclose(
+        np.asarray(stats.mcse(d, field="other")), np.asarray(stats.mcse(x)), rtol=1e-6
+    )
